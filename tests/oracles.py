@@ -2,7 +2,7 @@
 
 These are straight-line float64 NumPy implementations of the reference
 algorithms (same constants, same border conventions) used as golden
-references for the JAX/TPU implementations (SURVEY.md §4: golden-EPE vs a
+references for the JAX implementations (SURVEY.md §4: golden-EPE vs a
 pinned CPU reimplementation). They are deliberately slow and simple.
 """
 
@@ -177,7 +177,12 @@ def irls_energy_oracle(u, v, gx, gy, it, lambda_d, lambda_s, sigma_d, sigma_s):
 
 
 def optical_flow_pyramid_oracle(it_img, itp1_img, max_int, level,
-                                err_min=1e-6, iter_scale=1.0):
+                                err_min=1e-6, iter_scale=1.0, fuse=None):
+    """Coarse-to-fine Black-Anandan (OpticalFlow.cpp:131-270). ``fuse``
+    gives the semantics of the fused-block path
+    (tpuflow.solvers.black_anandan_fast): sweeps run in whole blocks of
+    ``fuse``, and the stop test runs after every 64 sweeps at level 0
+    and after every block above."""
     import math
 
     lam_d, lam_s = 5.0, 1.0
@@ -224,10 +229,21 @@ def optical_flow_pyramid_oracle(it_img, itp1_img, max_int, level,
         iters = int((lev + 1) * 10 * max(w0, h0) * iter_scale)
         E = 0.0
         inc = 0
+        if fuse:
+            every = max((64 if lev == 0 else fuse) // fuse, 1) * fuse
+            iters = -(-iters // fuse) * fuse
         for n in range(iters):
             ul, vl = irls_sweep_oracle(ul, vl, gx, gy, it_l, lam_d, lam_s,
                                        sd, ss, sup_x, sup_y)
-            if lev == 0:
+            if fuse:
+                if (n + 1) % every:
+                    continue
+                E_prev = E
+                E = irls_energy_oracle(ul, vl, gx, gy, it_l, lam_d, lam_s,
+                                       sd, ss)
+                if lev > 0:
+                    inc = inc + 1 if E > E_prev else 0
+            elif lev == 0:
                 if (n & 0x3F) == 0:
                     E = irls_energy_oracle(ul, vl, gx, gy, it_l, lam_d,
                                            lam_s, sd, ss)

@@ -16,16 +16,10 @@ from tpuflow.solvers.black_anandan import (
     irls_optical_flow_level,
 )
 
-try:
-    from jax import shard_map as _sm
 
-    def _shard_map(f, mesh, in_specs, out_specs):
-        return _sm(f, mesh=mesh, in_specs=in_specs, out_specs=out_specs)
-except ImportError:
-    from jax.experimental.shard_map import shard_map as _sm_old
-
-    def _shard_map(f, mesh, in_specs, out_specs):
-        return _sm_old(f, mesh=mesh, in_specs=in_specs, out_specs=out_specs)
+def _shard_map(f, mesh, in_specs, out_specs):
+    return jax.shard_map(f, mesh=mesh, in_specs=in_specs,
+                         out_specs=out_specs)
 
 from jax.sharding import NamedSharding, PartitionSpec as P
 
@@ -232,12 +226,12 @@ class TestWeakScaling:
             assert r["seconds"] > 0
 
 
-class TestPallasComposition:
+class TestFusedComposition:
     """The distributed production path: shard_map halo exchange feeding
-    the SAME Pallas tile kernels as the single-chip path (VERDICT r1 #1).
-    On the CPU mesh the kernels run in interpret mode."""
+    the SAME fused sweep bodies (tpuflow.ops.stencil) as the
+    single-device path."""
 
-    def test_hs_fused_pallas_matches_single_device(self):
+    def test_hs_fused_matches_single_device(self):
         from tpuflow.dist import make_mesh
         from tpuflow.dist.solvers import horn_schunck_sharded_fused
 
@@ -249,14 +243,13 @@ class TestPallasComposition:
         nxt = jnp.asarray(np.roll(np.asarray(prev), 1, axis=1))
         u_ref, v_ref = horn_schunck(prev, nxt, 5, 11, 1.0)
         u_k, v_k = horn_schunck_sharded_fused(
-            prev, nxt, mesh, 5, 11, 1.0, fuse=4,
-            use_pallas=True, interpret=True)
+            prev, nxt, mesh, 5, 11, 1.0, fuse=4)
         np.testing.assert_allclose(np.asarray(u_k), np.asarray(u_ref),
                                    rtol=0, atol=1e-10)
         np.testing.assert_allclose(np.asarray(v_k), np.asarray(v_ref),
                                    rtol=0, atol=1e-10)
 
-    def test_irls_fused_pallas_matches_fast_path(self):
+    def test_irls_fused_matches_fast_path(self):
         """irls_level_sharded_fused == irls_level_fast (same sweeps, same
         block cadence) across an 8-device mesh."""
         from tpuflow.dist import make_mesh
@@ -272,46 +265,18 @@ class TestPallasComposition:
         it = jnp.asarray(0.1 * r.normal(size=(h, w)))
         z = jnp.zeros((h, w))
         u1, v1, _, _, _ = irls_level_fast(
-            z, z, gx, gy, it, 0.4, 0.2, 24, 1e-6, False,
-            fuse=4, interpret=True)
+            z, z, gx, gy, it, 0.4, 0.2, 24, 1e-6, False, fuse=4)
         u8, v8 = irls_level_sharded_fused(
             z, z, gx, gy, it, mesh, LAMBDA_D, LAMBDA_S, 0.4, 0.2,
-            24, 1e-6, False, fuse=4, use_pallas=True, interpret=True)
+            24, 1e-6, False, fuse=4)
         np.testing.assert_allclose(np.asarray(u8), np.asarray(u1),
                                    rtol=0, atol=1e-10)
         np.testing.assert_allclose(np.asarray(v8), np.asarray(v1),
                                    rtol=0, atol=1e-10)
 
-    def test_irls_fused_jnp_matches_pallas_body(self):
-        """The jnp fallback body and the Pallas tile kernel are the same
-        code — results identical on the mesh."""
-        from tpuflow.dist import make_mesh
-        from tpuflow.dist.solvers import irls_level_sharded_fused
-
-        mesh = make_mesh(4)
-        ty, tx = mesh.devices.shape
-        h, w = 12 * ty, 12 * tx
-        r = np.random.default_rng(12)
-        gx = jnp.asarray(r.normal(size=(h, w)))
-        gy = jnp.asarray(r.normal(size=(h, w)))
-        it = jnp.asarray(0.1 * r.normal(size=(h, w)))
-        z = jnp.zeros((h, w))
-        a = irls_level_sharded_fused(z, z, gx, gy, it, mesh,
-                                     LAMBDA_D, LAMBDA_S, 0.4, 0.2,
-                                     12, 1e-6, True, fuse=4,
-                                     use_pallas=False)
-        b = irls_level_sharded_fused(z, z, gx, gy, it, mesh,
-                                     LAMBDA_D, LAMBDA_S, 0.4, 0.2,
-                                     12, 1e-6, True, fuse=4,
-                                     use_pallas=True, interpret=True)
-        np.testing.assert_allclose(np.asarray(a[0]), np.asarray(b[0]),
-                                   rtol=0, atol=1e-12)
-        np.testing.assert_allclose(np.asarray(a[1]), np.asarray(b[1]),
-                                   rtol=0, atol=1e-12)
-
     def test_pyramid_fused_matches_fast(self, small_pair):
-        """Full distributed coarse-to-fine with fused Pallas levels ==
-        the single-device fast path (same cadences)."""
+        """Full distributed coarse-to-fine with fused levels == the
+        single-device fast path (same cadences)."""
         from tpuflow.core.config import MultipleMotionParam
         from tpuflow.dist import make_mesh
         from tpuflow.dist.pyramid import optical_flow_pyramid_sharded
@@ -322,10 +287,10 @@ class TestPallasComposition:
         param = MultipleMotionParam(level=2)
         u_ref, v_ref = optical_flow_pyramid_fast(
             jnp.asarray(prev), jnp.asarray(nxt), 255.0, param,
-            iter_scale=0.02, fuse=4, interpret=True)
+            iter_scale=0.02, fuse=4)
         u_d, v_d = optical_flow_pyramid_sharded(
             jnp.asarray(prev), jnp.asarray(nxt), mesh, 255.0, param,
-            iter_scale=0.02, fuse=4, interpret=True)
+            iter_scale=0.02, fuse=4)
         np.testing.assert_allclose(np.asarray(u_d), np.asarray(u_ref),
                                    rtol=0, atol=5e-8)
         np.testing.assert_allclose(np.asarray(v_d), np.asarray(v_ref),

@@ -389,7 +389,7 @@ class TestTiledWarp:
         rng = np.random.default_rng(7)
         img = jnp.asarray(gf(rng.uniform(0, 255, (80, 128)), 2)
                           .astype(np.float32))
-        R = poly_expansion(img, 5, 1.2, use_kernel=False)
+        R = poly_expansion(img, 5, 1.2)
         u_big = jnp.full((80, 128), 17.3, jnp.float32)
         v_big = jnp.full((80, 128), -9.1, jnp.float32)
         m_gather = update_matrices(R, R, u_big, v_big, dense_warp_d=4,

@@ -38,7 +38,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="tpuflow",
         description="Line scratch detection by meaningful alignments + "
-        "dense optical flow (TPU-native re-implementation of "
+        "dense optical flow (JAX re-implementation of "
         "Cpp-Optical-Flow).")
     p.add_argument("-i", dest="input", required=False,
                    help="input filename pattern (printf %%0Nd for frames)")
@@ -125,7 +125,7 @@ def build_parser() -> argparse.ArgumentParser:
                    default="f32",
                    help="block-matching search evaluator precision: f32 "
                    "is bit-faithful to the reference cost; bf16 feeds "
-                   "the MXU reduction bf16 inputs with f32 accumulation "
+                   "the one-hot product bf16 inputs with f32 accumulation "
                    "(winners can differ at near-ties; only pays at very "
                    "large region counts)")
     p.add_argument("--bm_profile",
@@ -137,7 +137,7 @@ def build_parser() -> argparse.ArgumentParser:
                    "plateau-stopped refinement (-0.07 dB corpus); "
                    "'quality' = half-res segmentation (finer regions; "
                    "corpus compensation ABOVE cv2 Farneback); 'turbo' "
-                   "= both (documented trades, BASELINE.md r5)")
+                   "= both (documented trades)")
     p.add_argument("--refine_warp", action="store_true",
                    help="tpuflow extension: run the flagship gradient "
                    "refinement under the REAL BM warp instead of the "

@@ -79,8 +79,7 @@ def pad2d(img: jnp.ndarray, pad: int | tuple[int, int, int, int], mode: str) -> 
 
 def _take2d(img: jnp.ndarray, ys: jnp.ndarray, xs: jnp.ndarray) -> jnp.ndarray:
     """img[..., ys, xs] for in-range index arrays, as a flat axis-0-style
-    take — the gather pattern XLA lowers best on TPU (a 2-D fancy-index
-    gather is ~4x slower there)."""
+    take (one flat gather instead of a 2-D fancy-index gather)."""
     h, w = img.shape[-2], img.shape[-1]
     ys, xs = jnp.broadcast_arrays(ys, xs)
     flat_idx = ys * w + xs

@@ -84,7 +84,7 @@ class MultipleMotionParam:
     bm_kernel_spatial: int = 20
     bm_kernel_intensity: float = 16.0 / 255.0
     # Search evaluator: "matmul" (bit-faithful f32), "matmul_bf16"
-    # (bf16 MXU inputs + f32 accumulation; winners can differ at
+    # (bf16 product inputs + f32 accumulation; winners can differ at
     # near-ties — only pays at very large region counts), or "gather".
     bm_method: str = "matmul"
     # Gradient refine under the real BM warp (the reference zeroes MV

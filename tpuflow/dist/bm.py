@@ -4,9 +4,9 @@ The reference's flagship block-matching search
 (``OpticalFlow_BlockMatching.cpp:198-219`` ->
 ``BlockMatching<Lab>::block_matching(61, 1.0, 0.5)``) parallelizes with
 OpenMP inside the per-region loops (SURVEY.md §2.6). Regions are
-irregular, so the TPU matcher (tpuflow/blockmatching/matcher.py)
+irregular, so the matcher (tpuflow/blockmatching/matcher.py)
 evaluates the (2R+1)^2 candidate displacement grid densely; the natural
-multi-chip decomposition is therefore the *candidate axis*: every device
+multi-device decomposition is therefore the *candidate axis*: every device
 scores an equal slice of the search grid against the full (replicated,
 KITTI-sized) frames, the tiny (n_cand, n_regions) partial cost tables
 all-gather over the mesh, and the argmin + subpixel refinement replay
@@ -64,7 +64,7 @@ def _half_radius(search_range: int) -> int:
     return -(-(search_range // 2) // 2)
 
 
-def _mxu_dtype(method: str):
+def _dot_dtype(method: str):
     return jnp.bfloat16 if method == "matmul_bf16" else None
 
 
@@ -73,7 +73,7 @@ def _local_costs(cur_t, ref_t, labels_t, n_regions, cand_t, coeff_mad,
     """One device's slice of the integer cost table, dispatched on
     ``method`` — the single copy of the single-direction evaluator
     dispatch (the bidi twin is :func:`_local_costs_bidi`; both share
-    :func:`_half_radius`/:func:`_mxu_dtype`)."""
+    :func:`_half_radius`/:func:`_dot_dtype`)."""
     if method.startswith("matmul_half"):
         return _integer_costs_matmul(
             _half_res(cur_t), _half_res(ref_t), labels_t[::2, ::2],
@@ -81,7 +81,7 @@ def _local_costs(cur_t, ref_t, labels_t, n_regions, cand_t, coeff_mad,
             _half_radius(search_range), None)
     return _integer_costs_matmul(
         cur_t, ref_t, labels_t, n_regions, cand_t, coeff_mad,
-        coeff_zncc, chunk, search_range // 2, _mxu_dtype(method))
+        coeff_zncc, chunk, search_range // 2, _dot_dtype(method))
 
 
 def _local_costs_bidi(cur_t, refp_t, refn_t, labels_t, n_regions,
@@ -95,7 +95,7 @@ def _local_costs_bidi(cur_t, refp_t, refn_t, labels_t, n_regions,
             coeff_zncc, chunk, _half_radius(search_range), None)
     return _integer_costs_matmul_bidi(
         cur_t, refp_t, refn_t, labels_t, n_regions, cand_t, coeff_mad,
-        coeff_zncc, chunk, search_range // 2, _mxu_dtype(method))
+        coeff_zncc, chunk, search_range // 2, _dot_dtype(method))
 
 
 @functools.partial(

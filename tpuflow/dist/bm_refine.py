@@ -12,8 +12,7 @@ site loop at :433-441 as SURVEY.md §2.6's shard_map/ppermute scheme):
   refine, so the dt needs no warp gather);
 - the IRLS loop exchanges a ``fuse``-wide halo once per block of
   ``fuse`` region-gated Jacobi sweeps
-  (:func:`tpuflow.kernels.irls_stencil._irls_sweeps_gated` — the same
-  tile body as the single-chip kernel) — label halos carry REAL
+  (:func:`tpuflow.ops.stencil.irls_sweeps_gated`) — label halos carry REAL
   neighbor-tile labels, so the region gate is exact across tile
   boundaries;
 - sup uses pmax, the 64-iteration energy cadence + 3-strikes divergence
@@ -35,6 +34,7 @@ from jax.sharding import Mesh, NamedSharding
 from tpuflow.core.color import LAB_SCALE
 from tpuflow.dist.halo import halo_pad_2d
 from tpuflow.dist.solvers import SPEC, shard_map
+from tpuflow.ops.stencil import irls_sweeps_gated, nb_masks
 from tpuflow.solvers.mestimators import geman_mcclure_psi, geman_mcclure_rho
 
 
@@ -140,8 +140,6 @@ def _gated_sharded_fn(mesh: Mesh, h: int, w: int, lambda_d: float,
                       fuse: int, external_dt: bool = False,
                       sup_mode: str = "reference",
                       plateau_rtol: float = 0.0):
-    from tpuflow.kernels.irls_stencil import _irls_sweeps_gated, _nb_masks
-
     blocks_per_check = max(64 // fuse, 1)
     n_blocks = -(-iter_max // fuse)
     n_checks = max(-(-n_blocks // blocks_per_check), 1)
@@ -183,7 +181,7 @@ def _gated_sharded_fn(mesh: Mesh, h: int, w: int, lambda_d: float,
 
         row0 = iy * th - fuse
         col0 = ix * tw - fuse
-        nb = _nb_masks(row0, col0, th + 2 * fuse, tw + 2 * fuse, h, w, dt)
+        nb = nb_masks(row0, col0, th + 2 * fuse, tw + 2 * fuse, h, w, dt)
         # Static across sweeps: exchange the field/label halos once.
         gx_p = halo_pad_2d(gx, fuse)
         gy_p = halo_pad_2d(gy, fuse)
@@ -204,7 +202,7 @@ def _gated_sharded_fn(mesh: Mesh, h: int, w: int, lambda_d: float,
             return lax.psum(lax.psum(local, "tx"), "ty")
 
         def sweep_block(u, v):
-            return _irls_sweeps_gated(
+            return irls_sweeps_gated(
                 halo_pad_2d(u, fuse), halo_pad_2d(v, fuse),
                 gx_p, gy_p, it_p, lab_p, nb, sup_x, sup_y, fuse,
                 lambda_d, lambda_s, sigma_d, sigma_s)
@@ -330,12 +328,10 @@ def _gated_sharded_batched_fn(mesh: Mesh, h: int, w: int, lambda_d: float,
     OpticalFlow_BlockMatching.cpp:84-93) refine against ONE interest
     frame in a single shard_map program — gx/gy/label halos and border
     masks are shared, the per-direction Jacobi chains are independent so
-    they interleave on the VPU, and each direction keeps its own
+    they interleave, and each direction keeps its own
     per-element energy / 3-strikes early stop (a stopped direction's
     fields freeze while the other runs on — the serial semantics of
     ``irls_gradient_method_batched``)."""
-    from tpuflow.kernels.irls_stencil import _irls_sweeps_gated, _nb_masks
-
     blocks_per_check = max(64 // fuse, 1)
     n_blocks = -(-iter_max // fuse)
     n_checks = max(-(-n_blocks // blocks_per_check), 1)
@@ -375,7 +371,7 @@ def _gated_sharded_batched_fn(mesh: Mesh, h: int, w: int, lambda_d: float,
 
         row0 = iy * th - fuse
         col0 = ix * tw - fuse
-        nb = _nb_masks(row0, col0, th + 2 * fuse, tw + 2 * fuse, h, w, dt)
+        nb = nb_masks(row0, col0, th + 2 * fuse, tw + 2 * fuse, h, w, dt)
         gx_p = halo_pad_2d(gx, fuse)
         gy_p = halo_pad_2d(gy, fuse)
         it_ps = [halo_pad_2d(it, fuse) for it in its]
@@ -395,7 +391,7 @@ def _gated_sharded_batched_fn(mesh: Mesh, h: int, w: int, lambda_d: float,
                 for b in range(n_dirs)])
 
         def sweep_block(u, v, stop):
-            outs = [_irls_sweeps_gated(
+            outs = [irls_sweeps_gated(
                 halo_pad_2d(u[b], fuse), halo_pad_2d(v[b], fuse),
                 gx_p, gy_p, it_ps[b], lab_p, nb, sup_x, sup_y, fuse,
                 lambda_d, lambda_s, sigma_d, sigma_s)

@@ -5,7 +5,7 @@ configs, both single-level — the pair demo (0.5, 1, 64, 2, 8, 1.6)
 (``FarnebackOF/FarnebackOF.cpp:24``) and the streaming config
 (0.4, 1, 48, 2, 8, 1.2) (``VideoDenseOF/DenseFlow.cpp:37``). Its only
 parallelism is OpenCV's internal threading (SURVEY.md §2.6); the
-TPU-native equivalent is image-domain decomposition over a ("ty", "tx")
+multi-device equivalent here is image-domain decomposition over a ("ty", "tx")
 device mesh, the same comm backend as the variational solvers
 (tpuflow/dist/solvers.py).
 
@@ -45,9 +45,10 @@ from jax import lax
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from tpuflow.dist.halo import shift_along
-from tpuflow.dist.solvers import shard_map, _mesh_on_tpu
+from tpuflow.dist.solvers import shard_map
 from tpuflow.solvers.farneback import (
     _BORDER,
+    _poly_coefficients,
     _poly_exp_matrices,
     _solve_flow,
 )
@@ -91,22 +92,15 @@ def _conv2d_valid(padded: jnp.ndarray, kernel: jnp.ndarray) -> jnp.ndarray:
     return impl(padded, kernel)
 
 
-def _sep_valid(padded, kx: np.ndarray, ky: np.ndarray, use_pallas: bool):
-    """Separable VALID conv on a pre-halo'd tile, dispatching exactly
-    like sep_conv2d (Pallas kernel on TPU, outer-product jnp conv
-    elsewhere) so tiled == single-device bitwise on either backend."""
-    if use_pallas:
-        from tpuflow.kernels.sepconv import sep_conv2d_valid_pallas
-
-        return sep_conv2d_valid_pallas(
-            padded, tuple(float(x) for x in ky),
-            tuple(float(x) for x in kx))
+def _sep_valid(padded, kx: np.ndarray, ky: np.ndarray):
+    """Separable VALID conv on a pre-halo'd tile: the outer-product conv
+    of sep_conv2d, so tiled == single-device bitwise."""
     k2 = (jnp.asarray(ky, padded.dtype)[:, None]
           * jnp.asarray(kx, padded.dtype)[None, :])
     return _conv2d_valid(padded, k2)
 
 
-def _poly_tile(tile, poly_n: int, poly_sigma: float, use_pallas: bool):
+def _poly_tile(tile, poly_n: int, poly_sigma: float):
     """Per-tile polynomial expansion (solvers/farneback.py
     poly_expansion) with halo-exchanged CLAMP borders."""
     n = poly_n
@@ -115,30 +109,12 @@ def _poly_tile(tile, poly_n: int, poly_sigma: float, use_pallas: bool):
     gx = g * xs
     gxx = g * xs * xs
     padded = halo_pad_2d_clamp(tile, n)
-    if use_pallas:
-        from tpuflow.kernels.fb_kernels import fb_poly_expansion_pallas
-
-        ginv_rows = Ginv[1:6].copy()
-        ginv_rows[4] *= 0.5
-        return fb_poly_expansion_pallas(
-            padded, tuple(float(t) for t in g),
-            tuple(float(t) for t in gx),
-            tuple(float(t) for t in gxx),
-            tuple(tuple(float(t) for t in row) for row in ginv_rows))
 
     def m(ky, kx):
-        return _sep_valid(padded, kx, ky, False)
+        return _sep_valid(padded, kx, ky)
 
-    m00 = m(g, g)
-    m10 = m(g, gx)
-    m01 = m(gx, g)
-    m20 = m(g, gxx)
-    m02 = m(gxx, g)
-    m11 = m(gx, gx)
-    moments = jnp.stack([m00, m10, m01, m20, m02, m11], axis=-1)
-    Ginv = jnp.asarray(Ginv, tile.dtype)
-    r = jnp.einsum("hwk,jk->hwj", moments, Ginv)
-    return (r[..., 1], r[..., 2], r[..., 3], r[..., 4], r[..., 5] * 0.5)
+    moments = [m(g, g), m(g, gx), m(gx, g), m(g, gxx), m(gxx, g), m(gx, gx)]
+    return _poly_coefficients(moments, Ginv)
 
 
 def _warp_dense_tile(R2_halo, u, v, D: int, wh: int):
@@ -258,27 +234,22 @@ def _update_matrices_tile(R1, R2_halo_packed, u, v, row0, col0,
     return jnp.stack([m11, m12, m22, h1, h2], axis=0)
 
 
-def _blur_solve_tile(M, winsize: int, use_pallas: bool):
+def _blur_solve_tile(M, winsize: int):
     """Tiled _blur_solve: halo'd box aggregation + pointwise 2x2 solve
     (even-winsize anchor crop as in solvers/farneback.py _blur_same)."""
     th, tw = M.shape[1], M.shape[2]
     m = winsize // 2
     Mp = jnp.stack([halo_pad_2d_clamp(c, m) for c in M], axis=0)
-    if use_pallas:
-        from tpuflow.kernels.fb_kernels import fb_blur_solve_pallas
-
-        u, v = fb_blur_solve_pallas(Mp, winsize)
-        return u[:th, :tw], v[:th, :tw]
     k = np.full(winsize, 1.0 / winsize)
     blurred = jnp.stack(
-        [_sep_valid(c, k, k, False)[:th, :tw] for c in Mp], axis=0)
+        [_sep_valid(c, k, k)[:th, :tw] for c in Mp], axis=0)
     return _solve_flow(blurred)
 
 
 @functools.lru_cache(maxsize=64)
 def _fb_sharded_fn(mesh: Mesh, h: int, w: int, winsize: int,
                    iterations: int, poly_n: int, poly_sigma: float,
-                   wh: int, use_pallas: bool, with_init: bool = False,
+                   wh: int, with_init: bool = False,
                    dense_warp_d: int = 0):
     ty, tx = mesh.devices.shape
     th, tw = h // ty, w // tx
@@ -287,8 +258,8 @@ def _fb_sharded_fn(mesh: Mesh, h: int, w: int, winsize: int,
     def tile_body(p_t, n_t, u, v):
         row0 = lax.axis_index("ty") * th
         col0 = lax.axis_index("tx") * tw
-        R1 = _poly_tile(p_t, poly_n, poly_sigma, use_pallas)
-        R2 = _poly_tile(n_t, poly_n, poly_sigma, use_pallas)
+        R1 = _poly_tile(p_t, poly_n, poly_sigma)
+        R2 = _poly_tile(n_t, poly_n, poly_sigma)
         # Halo'd R2 stack, exchanged + packed once — iteration-invariant.
         from tpuflow.solvers.farneback import _pack_bilinear
 
@@ -310,7 +281,7 @@ def _fb_sharded_fn(mesh: Mesh, h: int, w: int, winsize: int,
                                       wh, False, R2_halo=R2_halo,
                                       dense_warp_d=dense_warp_d)
         for i in range(iterations):
-            u, v = _blur_solve_tile(M, winsize, use_pallas)
+            u, v = _blur_solve_tile(M, winsize)
             if i < iterations - 1:
                 M = _update_matrices_tile(R1, R2h_flat, u, v, row0, col0,
                                           h, w, wh, False,
@@ -340,7 +311,6 @@ def farneback_sharded(
     poly_sigma: float = 1.2,
     flags: int = 0,
     warp_halo: int | None = None,
-    use_pallas: bool | None = None,
     dense_warp_d: int = 4,
 ):
     """Distributed Farneback flow over a ("ty", "tx") mesh.
@@ -369,8 +339,6 @@ def farneback_sharded(
     m = winsize // 2
     if m > th or m > tw or poly_n > th or poly_n > tw:
         raise ValueError("tile smaller than a required halo")
-    if use_pallas is None:
-        use_pallas = _mesh_on_tpu(mesh)
 
     prev = jnp.asarray(prev)
     nxt = jnp.asarray(nxt)
@@ -393,7 +361,7 @@ def farneback_sharded(
     nxt = jax.device_put(nxt, sharding)
     f = _fb_sharded_fn(mesh, h, w, int(winsize), int(iterations),
                        int(poly_n), float(poly_sigma), int(wh),
-                       bool(use_pallas), with_init=levels > 1,
+                       with_init=levels > 1,
                        dense_warp_d=int(dense_warp_d))
     if levels > 1:
         u0 = jax.device_put(u0, sharding)

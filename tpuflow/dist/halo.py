@@ -2,8 +2,8 @@
 
 Each device owns an (H/ty, W/tx) tile; stencil ops of radius r need the
 r-pixel border of the four neighbors. :func:`halo_pad_2d` exchanges halos
-with ``lax.ppermute`` neighbor shifts (ICI within a slice, DCN across
-hosts transparently): x-strips first, then y-strips carrying the corners.
+with ``lax.ppermute`` neighbor shifts (NVLink between the GPUs of a
+host, the network across hosts): x-strips first, then y-strips carrying the corners.
 Non-periodic boundaries receive zeros — exactly the reference's
 BORDER_CONSTANT / get_zeropad convention (ppermute leaves devices without
 a source as zeros), so a zero-border stencil on the halo-padded tile is

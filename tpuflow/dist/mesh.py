@@ -1,9 +1,11 @@
 """Device mesh construction for 2-D image-domain tiling.
 
 The reference's only parallelism is OpenMP ``parallel for`` over pixel rows
-/ sites (SURVEY.md §2.6); the TPU-native equivalent is a 2-D mesh
-``("ty", "tx")`` over all chips with each device owning an image tile.
-Collectives ride ICI; across hosts the same code runs under
+/ sites (SURVEY.md §2.6); the multi-device equivalent is a 2-D mesh
+``("ty", "tx")`` over the devices with each device owning an image tile.
+The GPUs of one host reach each other all to all over NVLink, so the
+mesh follows the algorithm alone: :func:`make_mesh` takes the first N
+devices in order. Across hosts the same code runs under
 ``jax.distributed`` initialization (single-program multi-host).
 """
 

@@ -52,15 +52,13 @@ def optical_flow_pyramid_sharded(
     iter_scale: float = 1.0,
     iter_max: int = -1,
     fuse: int = 0,
-    interpret: bool = False,
     sup_mode: str = "reference",
 ):
     """Multi-chip Black-Anandan coarse-to-fine flow. Returns (u, v)
     sharded over the ("ty", "tx") mesh at full resolution.
 
     ``fuse > 0`` selects the production path: ``fuse`` sweeps per halo
-    exchange with Pallas tile bodies
-    (:func:`tpuflow.dist.solvers.irls_level_sharded_fused`) on every
+    exchange (:func:`tpuflow.dist.solvers.irls_level_sharded_fused`) on every
     level whose tiles fit the fused halo — identical descent, early-stop
     checks at the :func:`tpuflow.solvers.black_anandan_fast` cadence.
     ``fuse = 0`` exchanges a 1-px halo every iteration (the reference's
@@ -109,7 +107,7 @@ def optical_flow_pyramid_sharded(
             u_l, v_l = irls_level_sharded_fused(
                 z, z, gx, gy, it_l, mesh, LAMBDA_D, LAMBDA_S,
                 sigma_d, sigma_s, iters, param.error_min_threshold,
-                level == 0, fuse=fuse, interpret=interpret,
+                level == 0, fuse=fuse,
                 sup_mode=sup_mode)
         elif h % ty == 0 and w % tx == 0 and h // ty >= 2 and w // tx >= 2:
             u_l, v_l = irls_level_sharded(

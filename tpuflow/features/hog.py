@@ -32,7 +32,7 @@ Parity with ``HOG/HOG.cpp``, ``HOG/HOG_struct.h`` and ``HOG/HOG_match.cpp``:
   (HOG_match.cpp:9-75). Matches hog_prv(x) against hog_cur(x+offset), so
   the vector points forward in time from the previous frame's grid.
 
-TPU design: histogram binning is a one-hot expansion fused into cell
+Design: histogram binning is a one-hot expansion fused into cell
 reductions; dense cells are ``bins`` box filters; matching is a
 ``lax.fori_loop`` over window offsets carrying (d1, d2, best) with the
 whole grid updated in parallel — no data-dependent shapes anywhere.

@@ -1,8 +1,8 @@
 """Native (C++) I/O runtime: PNM/flow codecs + threaded frame prefetcher.
 
-The compute path is JAX/XLA/Pallas; this is the host-side runtime around
+The compute path is JAX/XLA; this is the host-side runtime around
 it — the equivalent of the reference's C++ I/O layer (pnm_lib_cpp) plus
-the ahead-of-device data loader a TPU pipeline needs. Built on first use
+the ahead-of-device data loader an accelerator pipeline needs. Built on first use
 with g++ (cached as _libtpuflow_io.so next to the source); ctypes ABI.
 
 Falls back cleanly: callers should catch ImportError/OSError from

@@ -3,7 +3,7 @@
 //
 // The reference's I/O layer is the C++ pnm_lib_cpp submodule (absent from
 // its snapshot; behavior reconstructed in SURVEY.md §2.4) feeding a
-// synchronous frame loop. For a TPU pipeline the loader must run ahead of
+// synchronous frame loop. For a GPU pipeline the loader must run ahead of
 // the device: this library decodes frames on worker threads into a
 // bounded ring so the host->device feed never stalls on disk or parsing.
 //

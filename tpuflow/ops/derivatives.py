@@ -23,9 +23,9 @@ from tpuflow.ops.filters import conv2d, filterer
 
 DERIVATIVE_MINIMUM = 0.0  # Scratch_MeaningfulMotion.h:123
 
-# Module-level kernel taps stay NumPy: concrete at every trace (so the
-# Pallas sep-conv dispatch can fire) and immune to aborted-trace tracer
-# poisoning that device-resident module constants suffer.
+# Module-level kernel taps stay NumPy: concrete at every trace and
+# immune to aborted-trace tracer poisoning that device-resident module
+# constants suffer.
 _SOBEL_X = np.array([[-1.0, 0.0, 1.0], [-2.0, 0.0, 2.0], [-1.0, 0.0, 1.0]])
 _SOBEL_Y = np.array([[-1.0, -2.0, -1.0], [0.0, 0.0, 0.0], [1.0, 2.0, 1.0]])
 

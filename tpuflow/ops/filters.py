@@ -1,9 +1,9 @@
 """L1 image-ops: convolution, box/gaussian/epsilon filters, horizontal median.
 
-TPU-first re-design of ``lib/ImgLibrary.cpp``: every op is expressed as
-static-shape padded convolutions / windowed reductions that XLA fuses and
-tiles onto the VPU, instead of the reference's OpenMP pixel loops. All ops
-are jit- and vmap-able and dtype-polymorphic (f32 on TPU, f64 for oracle
+Re-design of ``lib/ImgLibrary.cpp``: every op is expressed as
+static-shape padded convolutions / windowed reductions that XLA fuses,
+instead of the reference's OpenMP pixel loops. All ops are jit- and
+vmap-able and dtype-polymorphic (f32 on the GPU, f64 for oracle
 validation on CPU).
 
 Semantics notes (behavioral contract with the reference):
@@ -36,12 +36,16 @@ from tpuflow.core import borders as bd
 
 
 def _conv2d_valid(img: jnp.ndarray, kernel: jnp.ndarray) -> jnp.ndarray:
-    """VALID correlation of (H, W) img with (kh, kw) kernel."""
+    """VALID correlation of (H, W) img with (kh, kw) kernel.
+
+    HIGHEST precision: on the GPU a float32 convolution may otherwise run
+    in TF32 (about three decimal digits)."""
     lhs = img[None, None, :, :]
     rhs = kernel[None, None, :, :].astype(img.dtype)
     out = jax.lax.conv_general_dilated(
         lhs, rhs, window_strides=(1, 1), padding="VALID",
         dimension_numbers=("NCHW", "OIHW", "NCHW"),
+        precision=jax.lax.Precision.HIGHEST,
         preferred_element_type=img.dtype,
     )
     return out[0, 0]
@@ -77,49 +81,14 @@ def conv2d(
     return _conv2d_valid(padded, kernel)
 
 
-def _sep_conv_use_pallas(img, kx, ky) -> bool:
-    """Route through the Pallas separable kernel on TPU backends: XLA's
-    conv lowering is pathologically slow there for filter shapes (95 s for
-    ONE 17-tap separable pass at 1080p on the v5e — see
-    tpuflow/kernels/sepconv.py). The taps must be *concrete* — NumPy
-    arrays, Python sequences, or closed-over concrete jax arrays; taps
-    built with jnp ops inside a jit are Tracers and fall back (build taps
-    host-side, see solvers/farneback.py)."""
-    import os
-
-    if os.environ.get("TPUFLOW_NO_PALLAS"):
-        return False
-    if img.ndim != 2 or img.dtype != jnp.float32:
-        return False
-    if isinstance(kx, jax.core.Tracer) or isinstance(ky, jax.core.Tracer):
-        return False
-    try:
-        return jax.default_backend() not in ("cpu",)
-    except Exception:
-        return False
-
-
 def sep_conv2d(
     img: jnp.ndarray,
     kx: jnp.ndarray,
     ky: jnp.ndarray,
     border: str = bd.ZERO,
 ) -> jnp.ndarray:
-    """Separable correlation: rows with ky then columns with kx (odd taps)."""
-    # Dispatch BEFORE any jnp conversion: jnp.asarray inside a jit trace
-    # yields Tracers and would defeat the concrete-taps check.
-    if _sep_conv_use_pallas(img, kx, ky):
-        import numpy as _np
-
-        from tpuflow.kernels.sepconv import sep_conv2d_valid_pallas
-
-        ky_np = _np.asarray(ky, dtype=_np.float64)
-        kx_np = _np.asarray(kx, dtype=_np.float64)
-        rx, ry = kx_np.shape[0] // 2, ky_np.shape[0] // 2
-        padded = bd.pad2d(img, (ry, ry, rx, rx), border)
-        return sep_conv2d_valid_pallas(
-            padded, tuple(float(x) for x in ky_np),
-            tuple(float(x) for x in kx_np))
+    """Separable correlation: rows with ky then columns with kx (odd
+    taps), as one 2-D correlation with the outer-product kernel."""
     kx = jnp.asarray(kx)
     ky = jnp.asarray(ky)
     rx, ry = kx.shape[0] // 2, ky.shape[0] // 2
@@ -171,9 +140,9 @@ def gaussian_filter(img: jnp.ndarray, size_wh: tuple[int, int],
     out-of-range reads resolve to 0 — submodule behavior, SURVEY.md §2.4)."""
     w, h = size_wh
     if w % 2 == 1 and h % 2 == 1:
-        # Square odd kernels are exactly separable: 1-D host-side taps,
-        # so the TPU Pallas sep-conv path applies. Normalizing the outer
-        # product to sum 1 equals normalizing each factor by its own sum.
+        # Square odd kernels are exactly separable. Normalizing the
+        # outer product to sum 1 equals normalizing each factor by its
+        # own sum.
         import numpy as np
 
         xs = np.arange(w, dtype=np.float64) - w // 2

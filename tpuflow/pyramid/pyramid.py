@@ -1,6 +1,6 @@
 """Gaussian pyramid + per-level derivative fields + coarse-to-fine plumbing.
 
-TPU re-design of ``OpticalFlow/MultiResolution.cpp`` and the coarse-to-fine
+Re-design of ``OpticalFlow/MultiResolution.cpp`` and the coarse-to-fine
 helpers in ``OpticalFlow/OpticalFlow.cpp``:
 
 - :func:`pyramider` — 5-tap separable low-pass (w = [a/2, .5, a, .5, a/2]/1.8,
@@ -68,6 +68,7 @@ def _downsample(img: jnp.ndarray, out_wh: tuple[int, int]) -> jnp.ndarray:
     out = jax.lax.conv_general_dilated(
         lhs, rhs, window_strides=(2, 2), padding="VALID",
         dimension_numbers=("NCHW", "OIHW", "NCHW"),
+        precision=jax.lax.Precision.HIGHEST,
         preferred_element_type=img.dtype,
     )
     return out[0, 0, :out_h, :out_w]

@@ -15,11 +15,11 @@ to the mean of the *original* data points within a flat kernel (spatial
 radius ``kernel_spatial``, Lab-space radius ``kernel_intensity``); pixels
 whose modes coincide (within half a kernel) and touch form a region.
 
-TPU design: the filtering iterations are the hot part and run fully on
+Design: the filtering iterations are the hot part and run fully on
 device — a fixed number of mean-shift steps, each a dense sweep over a
 window of *static shifts* of the original frame (contiguous
-dynamic_slices of a sentinel-padded copy — random gathers at the moving
-query centers cost ~25x more on TPU, and the sentinel border replaces
+dynamic_slices of a sentinel-padded copy instead of random gathers at
+the moving query centers, and the sentinel border replaces
 the per-offset validity mask entirely). The shift window spans
 kernel_spatial + margin, which makes the step EXACT for every query
 whose mode has drifted at most ``margin`` pixels from its origin
@@ -65,10 +65,8 @@ def _ms_bands(E_k: int, quant: int = 4) -> tuple[tuple[int, int, int], ...]:
     either way). Restricting the sweep to the disc cuts ~21.5% of the
     offsets (pi/4). Bands quantize the per-row half-width UP to a
     multiple of ``quant`` so XLA sees ~21 loop nests instead of 648
-    unrolled bodies (full unroll measured 37 s/run; per-dy exact widths
-    measured no better than q=4). Measured at KITTI res R=20:
-    0.406 s (square) -> 0.352 s (q=4), outputs bitwise-equal on the A/B
-    frame (scripts/r3_ms_disc_ab.py).
+    unrolled bodies; outputs are bitwise-equal to the square window on
+    frames whose modes drift less than the margin.
 
     Returns (dy_lo, dy_hi, half_width) runs in ascending dy order, so
     the row-major accumulation order of the kept offsets is preserved
@@ -131,9 +129,8 @@ def _ms_step(labh, state, xs, ys, E: int, E_k: int,
             dy = i + dy_lo
             dyf = dy.astype(dt)
             ty2 = (dyf - ey) ** 2
-            # Full-width row band: the column-0 start keeps the slice
-            # lane-aligned (a trimmed E-wg start column measured 22x
-            # SLOWER — relayout copies per band).
+            # Full-width row band: one slice per band row, columns
+            # sliced per offset below.
             b0 = jax.lax.dynamic_slice(labh[0], (E + dy, 0), (h, w + 2 * E))
             b1 = jax.lax.dynamic_slice(labh[1], (E + dy, 0), (h, w + 2 * E))
             b2 = jax.lax.dynamic_slice(labh[2], (E + dy, 0), (h, w + 2 * E))
@@ -243,8 +240,8 @@ def mean_shift_filter(
     # contiguous dynamic_slice (cheaper than a wrap-around roll). The pad
     # value is a color SENTINEL farther than the color radius from every
     # real value (so out-of-image data points weigh 0 with no explicit
-    # validity mask). Per-channel (H, W) planes keep the lanes dense (a
-    # (H, W, 3) layout wastes the minormost tile).
+    # validity mask). Per-channel (H, W) planes keep each slice a dense
+    # 2-D copy.
     sentinel = _color_sentinel(lab, kernel_intensity)
     labh = [jnp.pad(lab[..., c], E, constant_values=sentinel)
             for c in range(3)]
@@ -270,8 +267,7 @@ def mean_shift_filter(
         out = out + (max_drift,)
     if return_trajectory:
         # (iters, H, W, 2) per-iteration DRIFT (position - origin) after
-        # each step — the per-iteration window-schedule evidence
-        # (scripts/r4_ms_sched_ab.py).
+        # each step — the per-iteration window-schedule evidence.
         out = out + (jnp.stack(traj),)
     return out
 
@@ -409,29 +405,6 @@ def _merge_labels_py(pos: np.ndarray, col: np.ndarray,
     return lab.astype(np.int32), n
 
 
-def _use_ms_kernel(dtype) -> bool:
-    """Opt-in (TPUFLOW_MS_KERNEL=1): the VMEM-resident Pallas filter
-    measured SLOWER than the 8x-unrolled jnp offset loop on the v5e
-    (flagship steady state 4.30 vs 3.56 s/frame-pair) — two hardware
-    rotations per channel per offset cost more than the fused
-    dynamic-slice reads XLA emits, and the carry set XLA round-trips is
-    amortized 8 offsets at a time. Kept for architectures where the
-    trade flips; bitwise-pinned by
-    tests/test_bm_flow.py::test_ms_filter_kernel_matches_jnp."""
-    import os
-
-    if not os.environ.get("TPUFLOW_MS_KERNEL"):
-        return False
-    if os.environ.get("TPUFLOW_NO_PALLAS"):
-        return False
-    if dtype != jnp.float32:
-        return False
-    try:
-        return jax.default_backend() not in ("cpu",)
-    except Exception:
-        return False
-
-
 def _upsample_segmentation(labels, n, pos, col, s: int, h: int,
                            w: int) -> SegmentationResult:
     """Expand a 1/s-resolution segmentation to full resolution: labels
@@ -475,7 +448,7 @@ def segment_meanshift(
     extents), then nearest-replicates the labels back to full
     resolution — ~scale^4 less filter work (pixels x window offsets).
     NOT faithful to the reference's full-res segmentation;
-    quality-guarded at corpus level (BASELINE.md r5)."""
+    quality-guarded at corpus level."""
     lab_j = jnp.asarray(lab)
     h0, w0 = lab_j.shape[:2]
     if scale > 1:
@@ -483,12 +456,7 @@ def segment_meanshift(
         kernel_spatial = max(int(kernel_spatial) // scale, 1)
         min_size = max(int(min_size) // (scale * scale), 1)
     R = int(kernel_spatial)
-    if _use_ms_kernel(lab_j.dtype):
-        from tpuflow.kernels.ms_filter import mean_shift_filter_pallas
-
-        pos, col = mean_shift_filter_pallas(lab_j, kernel_spatial,
-                                            float(kernel_intensity), iters)
-    elif margin == "auto" and R > 2:
+    if margin == "auto" and R > 2:
         m0 = max(R // 2, 1)
         pos, col, drift = mean_shift_filter(
             lab_j, kernel_spatial, float(kernel_intensity), iters,
@@ -549,11 +517,6 @@ def segment_meanshift_async(
         pos, col = mean_shift_filter_sharded(
             lab_j, mesh, kernel_spatial, float(kernel_intensity), iters,
             margin=margin)
-    elif _use_ms_kernel(lab_j.dtype):
-        from tpuflow.kernels.ms_filter import mean_shift_filter_pallas
-
-        pos, col = mean_shift_filter_pallas(lab_j, kernel_spatial,
-                                            float(kernel_intensity), iters)
     else:
         pos, col = mean_shift_filter(
             lab_j, kernel_spatial, float(kernel_intensity), iters,

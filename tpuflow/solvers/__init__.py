@@ -1,6 +1,7 @@
 from tpuflow.solvers.horn_schunck import (  # noqa: F401
     horn_schunck,
     horn_schunck_classic,
+    horn_schunck_conv,
     hs_gradients,
 )
 from tpuflow.solvers.black_anandan import (  # noqa: F401

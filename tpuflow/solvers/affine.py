@@ -14,8 +14,8 @@ coefficients are fitted coarse-to-fine by robust gradient descent:
 - dE_i = sum_site basis_i * psi_GM(g.u_a + I_t, sigmaD) (:148-172);
 - stop on E < threshold.
 
-TPU design: each iteration is a full-image reduction of 6 moments — a
-(H*W, 6) basis contraction that XLA maps onto the MXU; the loop is a
+Design: each iteration is a full-image reduction of 6 moments — a
+(H*W, 6) basis contraction; the loop is a
 ``lax.while_loop`` carrying the 6-vector.
 """
 

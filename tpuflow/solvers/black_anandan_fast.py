@@ -1,9 +1,9 @@
-"""Fast Black-Anandan: the coarse-to-fine IRLS with the fused Pallas sweep.
+"""Fast Black-Anandan: the coarse-to-fine IRLS in fused sweep blocks.
 
 Identical math to :func:`tpuflow.solvers.black_anandan.optical_flow_pyramid`
 (same pyramids, annealing, LevelDown warp, prolongation, Lipschitz steps),
-but each level's relaxation runs in blocks of ``fuse`` fused in-VMEM
-sweeps (:func:`tpuflow.kernels.irls_sweep_pallas`) with the energy
+but each level's relaxation runs in blocks of ``fuse`` shifted-slice
+sweeps (:func:`tpuflow.ops.stencil.irls_sweep_fused`) with the energy
 stopping test evaluated between blocks:
 
 - level 0: energy every 64 iterations — pick ``fuse`` dividing 64 (default
@@ -22,7 +22,7 @@ import jax
 import jax.numpy as jnp
 
 from tpuflow.core.config import MultipleMotionParam
-from tpuflow.kernels import irls_sweep_pallas
+from tpuflow.ops.stencil import irls_sweep_fused
 from tpuflow.pyramid import (
     add_vector_offset,
     dt_pyramid,
@@ -43,8 +43,7 @@ from tpuflow.solvers.black_anandan import (
 
 
 @partial(jax.jit, static_argnames=("iter_max", "is_level0", "sigma_d",
-                                   "sigma_s", "fuse", "tile_h", "tile_w",
-                                   "interpret", "sup_mode"))
+                                   "sigma_s", "fuse", "sup_mode"))
 def irls_level_fast(
     u0, v0, gx, gy, it,
     sigma_d: float, sigma_s: float,
@@ -52,9 +51,6 @@ def irls_level_fast(
     error_min_threshold: float,
     is_level0: bool,
     fuse: int = 16,
-    tile_h: int = 256,
-    tile_w: int = 512,
-    interpret: bool = False,
     sup_mode: str = "reference",
 ):
     """One level: blocks of ``fuse`` fused sweeps + energy stop tests.
@@ -72,10 +68,9 @@ def irls_level_fast(
     n_checks = max(-(-n_blocks // blocks_per_check), 1)
 
     def sweep_block(u, v):
-        return irls_sweep_pallas(
+        return irls_sweep_fused(
             u, v, gx, gy, it, sup_x, sup_y, fuse,
-            LAMBDA_D, LAMBDA_S, float(sigma_d), float(sigma_s),
-            tile_h, tile_w, fuse, interpret)
+            LAMBDA_D, LAMBDA_S, float(sigma_d), float(sigma_s), fuse)
 
     def energy(u, v):
         return irls_energy(u, v, gx, gy, it, LAMBDA_D, LAMBDA_S,
@@ -125,13 +120,10 @@ def optical_flow_pyramid_fast(
     iter_max: int = -1,
     iter_scale: float = 1.0,
     fuse: int = 16,
-    tile_h: int = 256,
-    tile_w: int = 512,
-    interpret: bool = False,
     energy_trace=None,
     sup_mode: str = "reference",
 ):
-    """Coarse-to-fine Black-Anandan flow on the fused Pallas sweep.
+    """Coarse-to-fine Black-Anandan flow in fused sweep blocks.
 
     ``sup_mode="analytic"`` takes the true Geman-McClure Lipschitz bound
     (~20x the reference's descent rate, same minimizer) — see
@@ -171,7 +163,7 @@ def optical_flow_pyramid_fast(
         u_l, v_l, _, _, trace = irls_level_fast(
             u0, v0, gx, gy, it_l, float(sigma_d), float(sigma_s),
             iters, param.error_min_threshold, level == 0,
-            fuse, tile_h, tile_w, interpret, sup_mode)
+            fuse, sup_mode)
         _emit_energy_trace_fast(level, trace, 64 if level == 0 else fuse,
                                 energy_trace)
         if level < max_level:

@@ -18,11 +18,10 @@ Two variants:
   weighted 4/8-neighbor Laplacian average, for users who want the standard
   algorithm rather than demo parity.
 
-TPU design: the whole iteration loop is a ``lax.fori_loop`` whose body is
-two small convolutions plus pointwise algebra — XLA keeps u/v resident and
-fuses the pointwise tail into the convolution epilogue. For production-rate
-1080p the fused Pallas kernel in :mod:`tpuflow.kernels.relax` runs k sweeps
-per HBM round-trip; this module is the reference-semantics path.
+Device paths (:mod:`tpuflow.core.backend`): :func:`horn_schunck` runs
+its sweeps as a ``lax.fori_loop`` of two box convolutions plus pointwise
+algebra (:func:`horn_schunck_conv`), or on the GPU in the temporally
+blocked CUDA kernel (:mod:`tpuflow.kernels.hs_cuda`).
 """
 
 from __future__ import annotations
@@ -33,7 +32,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from tpuflow.core import backend
 from tpuflow.core import borders as bd
+from tpuflow.kernels import hs_cuda
 from tpuflow.ops.derivatives import sobel_opencv
 from tpuflow.ops.filters import box_filter, conv2d
 
@@ -46,7 +47,6 @@ def hs_gradients(prev: jnp.ndarray, next: jnp.ndarray):
     return gx, gy, gt
 
 
-@partial(jax.jit, static_argnames=("window_size", "max_iterations"))
 def horn_schunck(
     prev: jnp.ndarray,
     next: jnp.ndarray,
@@ -54,7 +54,38 @@ def horn_schunck(
     max_iterations: int = 100,
     alpha: float = 1.0,
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
-    """Box-average Jacobi HS, parity with hornSchunck::getFlow."""
+    """Box-average Jacobi HS, parity with hornSchunck::getFlow.
+
+    Runs the CUDA kernel where the backend takes it
+    (:func:`tpuflow.core.backend.paths`) and it implements the window
+    and dtype, else :func:`horn_schunck_conv`."""
+    if (backend.paths().hs_kernel
+            and hs_cuda.supports(window_size, jnp.result_type(prev, next))):
+        return horn_schunck_kernel(prev, next, window_size, max_iterations,
+                                   alpha)
+    return horn_schunck_conv(prev, next, window_size, max_iterations, alpha)
+
+
+@partial(jax.jit, static_argnames=("window_size", "max_iterations"))
+def horn_schunck_kernel(prev, next, window_size: int = 5,
+                        max_iterations: int = 100, alpha: float = 1.0):
+    """:func:`horn_schunck` with the sweeps in the CUDA kernel (GPU only,
+    float32)."""
+    gx, gy, gt = hs_gradients(prev, next)
+    inv = 1.0 / (alpha * alpha + gx * gx + gy * gy)
+    return hs_cuda.hs_sweeps_cuda(gx, gy, gt, inv, max_iterations,
+                                  window_size)
+
+
+@partial(jax.jit, static_argnames=("window_size", "max_iterations"))
+def horn_schunck_conv(
+    prev: jnp.ndarray,
+    next: jnp.ndarray,
+    window_size: int = 5,
+    max_iterations: int = 100,
+    alpha: float = 1.0,
+) -> tuple[jnp.ndarray, jnp.ndarray]:
+    """:func:`horn_schunck` as one box convolution per field per sweep."""
     gx, gy, gt = hs_gradients(prev, next)
     denom = alpha * alpha + gx * gx + gy * gy
     gx_n = gx / denom

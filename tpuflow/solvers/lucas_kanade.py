@@ -17,7 +17,7 @@ pyramidal LK), not the binding:
 - :func:`dense_lucas_kanade` — dense per-pixel windowed LK via box-summed
   structure tensors (separable sums -> batched 2x2 solve), coarse-to-fine.
 
-TPU notes: point windows are static (N, win, win) gathers -> vmap maps them
+Design notes: point windows are static (N, win, win) gathers -> vmap maps them
 to vectorized gathers; the dense variant is pure conv + pointwise algebra.
 """
 

@@ -12,7 +12,7 @@ parameter banners (Scratch_MeaningfulMotion.cpp:276-312). SURVEY.md §5.1/
   level, exportable as a dict (the E(n) cadence of the reference);
 - ``jax.profiler`` integration: ``trace_span(..., profile=True)`` wraps
   the block in a ``jax.profiler.TraceAnnotation`` so spans show up in
-  TPU profiles.
+  device profiles.
 """
 
 from __future__ import annotations
@@ -51,7 +51,7 @@ def set_telemetry(t: Telemetry) -> None:
 @contextlib.contextmanager
 def trace_span(name: str, profile: bool = False, **fields):
     """Timed span: emits '<name>.done' with wall seconds; optionally
-    annotates the TPU profile via jax.profiler."""
+    annotates the device profile via jax.profiler."""
     t0 = time.perf_counter()
     ctx = contextlib.nullcontext()
     if profile:

@@ -5,7 +5,7 @@ The reference opens an interactive Xlib window showing the image as a 3-D
 height field (intensity -> z) with detected segments as 3-D lines, a
 mouse/key camera, painter's-algorithm depth ordering, and toy
 "galaxy"/"gravity" particle animations of the pixels. A GUI is the wrong
-shape for a TPU/server framework, so this module renders the *same
+shape for a server framework, so this module renders the *same
 scene* to an RGB array (writeable as PNG/PPM or streamed as frames):
 
 - :func:`project_points` — TransRotate_3DPoint (Plot_X11.cpp:/TransRotate):
